@@ -3,7 +3,7 @@
 // The reference's input path (load_new_batch, resnet.cu:1235-1325) freads an
 // entire multi-GB shard into RAM synchronously on the training thread, then
 // memcpys batch slices — its own comment (resnet.cu:1233) concedes this
-// should have been overlapped. This loader is the native TPU-side
+// should have been overlapped. This loader is the native host-side
 // equivalent done right:
 //
 //   * N worker threads pread() batch-sized slices straight from the shard
@@ -14,7 +14,7 @@
 //     training thread and caps memory at ~depth batches,
 //   * optional NCHW->NHWC repack on the worker threads (the transform the
 //     shard builder bakes in, build_training_shards.c:133-147, inverted
-//     for the TPU-preferred channels-last layout),
+//     for the channels-last layout the model runs in),
 //   * shard-cursor semantics identical to the Python ShardIterator
 //     (shard, batch_in_shard, epoch) so checkpoints resume exactly;
 //     truncated final shards are clamped to the batches actually on disk

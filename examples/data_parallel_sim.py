@@ -1,10 +1,10 @@
-"""Data-parallel training on a simulated 8-device mesh (no TPU needed).
+"""Data-parallel training on a simulated 8-device mesh (no GPU needed).
 
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
       python examples/data_parallel_sim.py
 
-On a real v5e-8 the same code runs unchanged — the mesh picks up the
-physical chips and the gradient all-reduce rides ICI.
+On a host with several GPUs the same code runs unchanged — the mesh picks
+up the physical cards and the gradient all-reduce rides NCCL.
 """
 
 import os
@@ -17,9 +17,7 @@ if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", "")
         os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
     ).strip()
 
-import jax
-
-jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
+import jax  # noqa: E402
 
 from resnet_tpu.config import (
     DataConfig,

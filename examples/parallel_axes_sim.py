@@ -1,4 +1,4 @@
-"""Every parallelism axis on one simulated 8-device mesh (no TPU needed).
+"""Every parallelism axis on one simulated 8-device mesh (no GPU needed).
 
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
       python examples/parallel_axes_sim.py
@@ -13,7 +13,7 @@ model code never changes, only the placement annotations do.
   4. ZeRO state sharding   params/moments sharded across 'data'
                            (all-gathered for compute, stored at 1/N)
 
-On a real v5e-8 the same code runs unchanged over ICI.
+On a host with several GPUs the same code runs unchanged over NCCL.
 """
 
 import os
@@ -26,10 +26,7 @@ if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", "")
         os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
     ).strip()
 
-import jax
-
-jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
+import jax  # noqa: E402
 import numpy as np
 
 from resnet_tpu.config import (

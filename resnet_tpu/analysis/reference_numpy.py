@@ -24,6 +24,18 @@ Transliterated semantics (file:line into /root/reference):
                 spatial(stride)/BN+ReLU, expand/BN, [proj/BN], add, ReLU)
                 -> global avgpool -> FC -> softmax.
 
+Backward and optimizer semantics, for op-level parity tests:
+  conv_grad_ref convolutionDerivInput / convolutionDerivWeights
+                (resnet.cu:166-282): the adjoint of conv_ref's centered,
+                zero-padded window.
+  bn_grad_ref   the batch-norm + activation backward (resnet_clean.cu:
+                785-905): ReLU gate on y > 0, then the closed-form BN
+                input/gamma/beta gradients over batch*space.
+  adam_ref      updateMeans / updateVars / updateParams (resnet.cu:605-662):
+                weight decay folded into the moments and applied again in
+                the step, non-finite gradients skip the moment update,
+                non-finite results roll the parameter back.
+
 All math in float32 (the reference is fp32 throughout), with float64 only
 where numpy's BLAS would otherwise change the contraction dtype.
 """
@@ -165,3 +177,74 @@ def forward_reference_numpy(
         tape["linear_output"] = logits
         tape["pred"] = preds
     return logits, preds, tape
+
+
+def conv_grad_ref(
+    x: np.ndarray, w: np.ndarray, dy: np.ndarray, stride: int = 1
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(dx, dw) of conv_ref(x, w, stride) for the output cotangent dy."""
+    x = np.asarray(x, np.float64)
+    w = np.asarray(w, np.float64)
+    dy = np.asarray(dy, np.float64)
+    n, h, wd, ci = x.shape
+    kh, kw, _, co = w.shape
+    hk_h, hk_w = kh // 2, kw // 2
+    ho, wo = h // stride, wd // stride
+    xp = np.zeros((n, h + 2 * hk_h, wd + 2 * hk_w, ci))
+    xp[:, hk_h : hk_h + h, hk_w : hk_w + wd, :] = x
+    dxp = np.zeros_like(xp)
+    dw = np.zeros_like(w)
+    for r in range(kh):
+        for c in range(kw):
+            rows = slice(r, r + stride * (ho - 1) + 1, stride)
+            cols = slice(c, c + stride * (wo - 1) + 1, stride)
+            dw[r, c] = np.tensordot(xp[:, rows, cols, :], dy,
+                                    axes=([0, 1, 2], [0, 1, 2]))
+            dxp[:, rows, cols, :] += np.tensordot(dy, w[r, c], axes=([3], [1]))
+    dx = dxp[:, hk_h : hk_h + h, hk_w : hk_w + wd, :]
+    return dx.astype(np.float32), dw.astype(np.float32)
+
+
+def bn_grad_ref(
+    x: np.ndarray, gamma: np.ndarray, beta: np.ndarray, eps: float,
+    dy: np.ndarray, relu: bool = False,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(dx, dgamma, dbeta) of bn_ref(x, gamma, beta, eps, relu)[0] for the
+    cotangent dy; x is (N, H, W, C)."""
+    x = np.asarray(x, np.float64)
+    dy = np.asarray(dy, np.float64)
+    gamma = np.asarray(gamma, np.float64)
+    axes = (0, 1, 2)
+    m = x.shape[0] * x.shape[1] * x.shape[2]
+    mean = x.mean(axis=axes)
+    inv_std = 1.0 / np.sqrt(x.var(axis=axes) + eps)
+    xhat = (x - mean) * inv_std
+    if relu:
+        dy = dy * ((gamma * xhat + np.asarray(beta, np.float64)) > 0)
+    dbeta = dy.sum(axis=axes)
+    dgamma = (dy * xhat).sum(axis=axes)
+    dx = gamma * inv_std / m * (m * dy - dbeta - xhat * dgamma)
+    return (dx.astype(np.float32), dgamma.astype(np.float32),
+            dbeta.astype(np.float32))
+
+
+def adam_ref(
+    p: np.ndarray, g: np.ndarray, m: np.ndarray, v: np.ndarray, *,
+    lr: float, wd: float, b1: float, b2: float, eps: float,
+    mean_decay: float, var_decay: float,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One guarded Adam step on flat float32 arrays; mean_decay/var_decay
+    are b1^t, b2^t already advanced for this step. Returns (p, m, v)."""
+    f32 = np.float32
+    p, g, m, v = (np.asarray(a, f32) for a in (p, g, m, v))
+    finite = np.isfinite(g)
+    with np.errstate(invalid="ignore", over="ignore"):
+        g_wd = g + f32(wd) * p
+        new_m = np.where(finite, f32(b1) * m + f32(1 - b1) * g_wd, m)
+        new_v = np.where(finite, f32(b2) * v + f32(1 - b2) * g_wd * g_wd, v)
+        m_hat = new_m / f32(1 - mean_decay)
+        v_hat = new_v / f32(1 - var_decay)
+        new_p = p - (f32(lr) * m_hat / (np.sqrt(v_hat) + f32(eps))
+                     + f32(wd) * p)
+    new_p = np.where(np.isfinite(new_p), new_p, p)
+    return new_p.astype(f32), new_m.astype(f32), new_v.astype(f32)

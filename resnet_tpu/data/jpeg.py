@@ -2,9 +2,9 @@
 
 The reference does all decode/crop work offline (organize_input.ipynb +
 build_training_shards.c) and trains from pre-cropped float shards with no
-train-time augmentation beyond the baked random crop. The BASELINE north
-star (SURVEY.md section 7) additionally mandates an online host-side
-JPEG pipeline: decode -> random-resized-crop -> random horizontal flip ->
+train-time augmentation beyond the baked random crop. The 76% recipe
+(docs/imagenet_76_recipe.md, SURVEY.md section 7) additionally needs an
+online host-side JPEG pipeline: decode -> random-resized-crop -> random horizontal flip ->
 BGR-free RGB -> per-channel mean subtraction, feeding the same batch dict
 the shard loaders produce. Standard ImageNet recipe (Goyal et al. 2017)
 augmentation, required to reach 76% top-1.

@@ -6,8 +6,8 @@ the same RNG protocol, and the native side does header parse ->
 DCT-scaled decode -> crop -> bilinear resample -> optional flip,
 returning the uint8 RGB crop. libjpeg's scale_num/8 decode means large
 sources pay only the IDCT work the crop actually needs — the lever that
-moves the 24k img/s input budget from ~100 PIL workers toward a
-realistic core count (docs/inputtable_r3.json weak spot).
+brings a host decode budget down from many PIL workers toward a
+realistic core count.
 
 Falls back cleanly: available() is False when the library isn't built,
 and non-JPEG bytes (PNG in the tree) raise for the caller to fall back

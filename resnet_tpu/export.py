@@ -3,26 +3,25 @@
 The reference has no inference or serving path at all — its six binaries
 train only (resnet.cu:3222-3429 is a training main; prediction exists only
 as the train-step softmax copied to host, resnet.cu:1774). A production
-framework needs a deployment artifact, so this module provides one the
-TPU-native way:
+framework needs a deployment artifact, so this module provides one:
 
 - ``export_inference`` closes the eval forward (running-stats BN — batch
   statistics are a training-only semantic, resnet.cu:289) over the trained
   weights, so parameters are baked into the program as constants, and
   exports it via ``jax.export`` with a SYMBOLIC batch dimension: one
   artifact serves any batch size.
-- ``save_inference`` / ``load_inference`` serialize the artifact to bytes
-  on disk and restore a callable from them. Serving hosts need jax and
-  this file's loader — no model code, config system, or checkpoint
-  machinery.
+- ``save_inference`` / ``load_inference`` write the artifact to disk and
+  restore a callable from it. Serving hosts need jax and this file's
+  loader — no model code, config system, or checkpoint machinery.
 
 The artifact is StableHLO, so it is compiled (and autotuned) by the
 serving host's own XLA for its own backend; export with
-``platforms=('tpu', 'cpu')`` for an artifact that runs on both.
+``platforms=('cuda', 'cpu')`` for an artifact that runs on both.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Optional, Sequence
 
@@ -49,9 +48,9 @@ def export_inference(
 
     batch: None exports a symbolic batch dimension (any batch size at
     serving time); an int pins it. platforms: None = the current backend
-    only; pass ('tpu', 'cpu') for a portable artifact. weights_dtype:
+    only; pass ('cuda', 'cpu') for a portable artifact. weights_dtype:
     cast the baked-in weights (e.g. 'bfloat16' halves the artifact;
-    TPU serving computes in bf16 anyway — logits stay fp32).
+    bf16 serving computes in bf16 anyway — logits stay fp32).
     """
     ecfg = ecfg or ExecutionConfig()
     if weights_dtype is not None:
@@ -100,8 +99,7 @@ def export_quantized_inference(
     platforms: Optional[Sequence[str]] = None,
 ) -> jax_export.Exported:
     """W8A8 serving artifact (quantize.py): BN folded, weights per-channel
-    int8, activations per-tensor int8 calibrated on ``calib_images`` —
-    measured 15,696 img/s/chip on v5e at b256 vs 12,042 bf16. Same
+    int8, activations per-tensor int8 calibrated on ``calib_images``. Same
     symbolic-batch / serialization contract as ``export_inference``."""
     from .quantize import quantize_model, quantized_forward
 
@@ -124,8 +122,52 @@ def export_quantized_inference(
     return jax_export.export(jax.jit(infer), **kwargs)(spec)
 
 
+# On-disk artifact: magic line, 8-byte little-endian header length, JSON
+# header (signature and calling convention), then the serialized StableHLO
+# module. jax.export's own serialize() needs the optional flatbuffers
+# package; this format needs jax alone. It carries exactly what the two
+# exporters above produce: one image array in, one logits array out, one
+# device, no shardings or effects.
+_MAGIC = b"resnet-export-v1\n"
+_IN_TREE = jax.tree_util.tree_structure(((0,), {}))
+_OUT_TREE = jax.tree_util.tree_structure(0)
+
+
+def _aval_spec(aval):
+    return [", ".join(map(str, aval.shape)), str(aval.dtype)]
+
+
+def serialize_inference(exported: jax_export.Exported) -> bytes:
+    """The artifact's bytes, as ``save_inference`` writes them."""
+    if (
+        exported.in_tree != _IN_TREE or exported.out_tree != _OUT_TREE
+        or exported.nr_devices != 1
+        or exported.ordered_effects or exported.unordered_effects
+        or exported.disabled_safety_checks
+        or any(s is not None for s in exported.in_shardings_hlo)
+        or any(s is not None for s in exported.out_shardings_hlo)
+    ):
+        raise ValueError(
+            "serialize_inference stores single-device images -> logits "
+            "exports without shardings or effects"
+        )
+    header = json.dumps({
+        "fun_name": exported.fun_name,
+        "in_avals": [_aval_spec(a) for a in exported.in_avals],
+        "out_avals": [_aval_spec(a) for a in exported.out_avals],
+        "platforms": list(exported.platforms),
+        "calling_convention_version": exported.calling_convention_version,
+        "module_kept_var_idx": list(exported.module_kept_var_idx),
+        "uses_global_constants": exported.uses_global_constants,
+    }).encode()
+    return b"".join([
+        _MAGIC, len(header).to_bytes(8, "little"), header,
+        exported.mlir_module_serialized,
+    ])
+
+
 def save_inference(path: str, exported: jax_export.Exported) -> str:
-    data = exported.serialize()
+    data = serialize_inference(exported)
     tmp = f"{path}.tmp-{os.getpid()}"
     with open(tmp, "wb") as f:
         f.write(data)
@@ -140,4 +182,40 @@ def load_inference(path_or_bytes) -> jax_export.Exported:
     else:
         with open(path_or_bytes, "rb") as f:
             data = f.read()
-    return jax_export.deserialize(data)
+    if not data.startswith(_MAGIC):
+        raise ValueError("not a resnet export artifact")
+    start = len(_MAGIC) + 8
+    n = int.from_bytes(data[len(_MAGIC):start], "little")
+    h = json.loads(data[start:start + n])
+    scope = jax_export.SymbolicScope()  # 'b' is one symbol in and out
+
+    def avals(specs):
+        return tuple(
+            jax.core.ShapedArray(
+                jax_export.symbolic_shape(shape, scope=scope), jnp.dtype(dt)
+            )
+            for shape, dt in specs
+        )
+
+    return jax_export.Exported(
+        fun_name=h["fun_name"],
+        in_tree=_IN_TREE,
+        in_avals=avals(h["in_avals"]),
+        out_tree=_OUT_TREE,
+        out_avals=avals(h["out_avals"]),
+        _has_named_shardings=True,
+        _in_named_shardings=(None,),
+        _out_named_shardings=(None,),
+        in_shardings_hlo=(None,),
+        out_shardings_hlo=(None,),
+        nr_devices=1,
+        platforms=tuple(h["platforms"]),
+        ordered_effects=(),
+        unordered_effects=(),
+        disabled_safety_checks=(),
+        mlir_module_serialized=data[start + n:],
+        calling_convention_version=h["calling_convention_version"],
+        module_kept_var_idx=tuple(h["module_kept_var_idx"]),
+        uses_global_constants=h["uses_global_constants"],
+        _get_vjp=None,
+    )

@@ -15,7 +15,7 @@ caller (loss or prediction path).
 
 Unlike the reference's six memory variants, caching-vs-recompute is a
 config axis: ecfg.remat='block' wraps each residual block in
-jax.checkpoint, the TPU analogue of resnet_clean.cu's recompute-in-backward
+jax.checkpoint, the counterpart of resnet_clean.cu's recompute-in-backward
 strategy (resnet_clean.cu:2459-2958).
 """
 
@@ -27,8 +27,15 @@ import jax
 import jax.numpy as jnp
 
 from ..config import ExecutionConfig, ModelConfig
-from ..ops import global_avg_pool, max_pool, softmax
-from ..ops.dispatch import bn_act, conv as _dispatch_conv, fc, residual_join
+from ..ops import (
+    bn_act,
+    conv2d,
+    global_avg_pool,
+    linear,
+    max_pool,
+    residual_join,
+    softmax,
+)
 
 
 def _save_convs_policy(prim, *_, **__):
@@ -47,25 +54,14 @@ _SAVE_CONVS = jax.checkpoint_policies.save_from_both_policies(
 
 
 def _conv(x, w, *, stride, ecfg, groups=1):
-    engine = ecfg.conv_kernels
-    if groups > 1:
-        # grouped conv (ResNeXt): XLA path only
-        from ..ops import conv2d
-
-        return conv2d(
-            x, w, stride=stride, layout=ecfg.layout,
-            precision=ecfg.matmul_precision, groups=groups,
-        )
-    return _dispatch_conv(
-        x, w, stride=stride, layout=ecfg.layout, engine=engine,
-        precision=ecfg.matmul_precision,
-        interpret=ecfg.resolve_interpret() if engine == "pallas" else False,
+    return conv2d(
+        x, w, stride=stride, layout=ecfg.layout,
+        precision=ecfg.matmul_precision, groups=groups,
     )
 
 
 def _bn_apply(x, bn_params, *, eps, layout, state=None, train=True,
-              relu_fused=False, relu_cap=None, engine="xla", interpret=False,
-              mode="batch", stats_batch=0):
+              relu_fused=False, relu_cap=None, mode="batch", stats_batch=0):
     """BN in train (batch stats) or eval (running stats) mode, with the
     following ReLU fused in when relu_fused=True (doBatchNormAndActivate,
     resnet.cu:289). Returns (y, (mean, var)).
@@ -108,8 +104,7 @@ def _bn_apply(x, bn_params, *, eps, layout, state=None, train=True,
         return y, stats
     return bn_act(
         x, bn_params["gamma"], bn_params["beta"], eps=eps, layout=layout,
-        relu=relu_fused, relu_cap=relu_cap, engine=engine, interpret=interpret,
-        mean=mean, var=var,
+        relu=relu_fused, relu_cap=relu_cap, mean=mean, var=var,
     )
 
 
@@ -118,55 +113,6 @@ def _bottleneck_block(
 ):
     layout = ecfg.layout
     eps = mcfg.bn_eps
-    engine = ecfg.kernels
-    if (
-        engine == "blockfused"
-        and stride == 1
-        and "proj" not in block_params
-        and layout == "NHWC"
-        and train
-        and tape is None
-        and ecfg.bn_mode == "batch"
-        and not ecfg.bn_stats_batch
-        and mcfg.groups == 1
-        # compiled-kernel tiling feasibility: _pad_interior only pads the
-        # interior width C to 128 lanes, so the block input width 4C must
-        # already be lane-aligned, and some batch tile nb | N must give
-        # 8-sublane-aligned row blocks (nb*H*W % 8 == 0) — otherwise fall
-        # through to the per-op path instead of dying inside Mosaic
-        and x.shape[-1] % 128 == 0
-        and any(
-            x.shape[0] % nb == 0 and (nb * x.shape[1] * x.shape[2]) % 8 == 0
-            for nb in range(1, x.shape[0] + 1)
-        )
-    ):
-        # whole-block fused kernel: one pallas_call for the identity-
-        # shortcut stride-1 bottleneck (12 of 16 blocks); projection /
-        # stride-2 blocks and every other configuration fall through to
-        # the standard per-op path below
-        from ..kernels.block_fused import block_fused, bn_stats_from_sums
-
-        w1 = block_params["reduce"]["w"]
-        w2 = block_params["spatial"]["w"]
-        w3 = block_params["expand"]["w"]
-        out, sums_r, sums_s, sums_e = block_fused(
-            x.astype(ecfg.cdtype),
-            w1.reshape(w1.shape[-2], w1.shape[-1]),
-            w2,
-            w3.reshape(w3.shape[-2], w3.shape[-1]),
-            block_params["bn_reduce"]["gamma"], block_params["bn_reduce"]["beta"],
-            block_params["bn_spatial"]["gamma"], block_params["bn_spatial"]["beta"],
-            block_params["bn_expand"]["gamma"], block_params["bn_expand"]["beta"],
-            eps, ecfg.relu_cap, ecfg.matmul_precision,
-            ecfg.resolve_interpret(),
-        )
-        m = x.shape[0] * x.shape[1] * x.shape[2]
-        return out, {
-            "bn_reduce": bn_stats_from_sums(sums_r, m),
-            "bn_spatial": bn_stats_from_sums(sums_s, m),
-            "bn_expand": bn_stats_from_sums(sums_e, m),
-        }
-    interp = ecfg.resolve_interpret() if engine == "pallas" else False
     stats: Dict[str, Any] = {}
 
     out = _conv(x, block_params["reduce"]["w"], stride=1, ecfg=ecfg)
@@ -175,7 +121,8 @@ def _bottleneck_block(
     out, stats["bn_reduce"] = _bn_apply(
         out, block_params["bn_reduce"], eps=eps, layout=layout,
         state=None if state is None else state["bn_reduce"], train=train,
-        relu_fused=True, relu_cap=ecfg.relu_cap, engine=engine, interpret=interp, mode=ecfg.bn_mode, stats_batch=ecfg.bn_stats_batch,
+        relu_fused=True, relu_cap=ecfg.relu_cap, mode=ecfg.bn_mode,
+        stats_batch=ecfg.bn_stats_batch,
     )
 
     out = _conv(
@@ -187,7 +134,8 @@ def _bottleneck_block(
     out, stats["bn_spatial"] = _bn_apply(
         out, block_params["bn_spatial"], eps=eps, layout=layout,
         state=None if state is None else state["bn_spatial"], train=train,
-        relu_fused=True, relu_cap=ecfg.relu_cap, engine=engine, interpret=interp, mode=ecfg.bn_mode, stats_batch=ecfg.bn_stats_batch,
+        relu_fused=True, relu_cap=ecfg.relu_cap, mode=ecfg.bn_mode,
+        stats_batch=ecfg.bn_stats_batch,
     )
 
     out = _conv(out, block_params["expand"]["w"], stride=1, ecfg=ecfg)
@@ -196,7 +144,7 @@ def _bottleneck_block(
     out, stats["bn_expand"] = _bn_apply(
         out, block_params["bn_expand"], eps=eps, layout=layout,
         state=None if state is None else state["bn_expand"], train=train,
-        engine=engine, interpret=interp, mode=ecfg.bn_mode, stats_batch=ecfg.bn_stats_batch,
+        mode=ecfg.bn_mode, stats_batch=ecfg.bn_stats_batch,
     )
 
     if "proj" in block_params:
@@ -204,14 +152,14 @@ def _bottleneck_block(
         residual, stats["bn_proj"] = _bn_apply(
             residual, block_params["bn_proj"], eps=eps, layout=layout,
             state=None if state is None else state["bn_proj"], train=train,
-            engine=engine, interpret=interp, mode=ecfg.bn_mode, stats_batch=ecfg.bn_stats_batch,
+            mode=ecfg.bn_mode, stats_batch=ecfg.bn_stats_batch,
         )
         if tape is not None:
             tape["transformed_residual"] = residual
     else:
         residual = x
 
-    out = residual_join(out, residual, engine=engine, relu_cap=ecfg.relu_cap, interpret=interp)
+    out = residual_join(out, residual, relu_cap=ecfg.relu_cap)
     if tape is not None:
         tape["output_activated"] = out
     return out, stats
@@ -222,21 +170,20 @@ def _basic_block(
 ):
     layout = ecfg.layout
     eps = mcfg.bn_eps
-    engine = ecfg.kernels
-    interp = ecfg.resolve_interpret() if engine == "pallas" else False
     stats: Dict[str, Any] = {}
 
     out = _conv(x, block_params["conv1"]["w"], stride=stride, ecfg=ecfg)
     out, stats["bn1"] = _bn_apply(
         out, block_params["bn1"], eps=eps, layout=layout,
         state=None if state is None else state["bn1"], train=train,
-        relu_fused=True, relu_cap=ecfg.relu_cap, engine=engine, interpret=interp, mode=ecfg.bn_mode, stats_batch=ecfg.bn_stats_batch,
+        relu_fused=True, relu_cap=ecfg.relu_cap, mode=ecfg.bn_mode,
+        stats_batch=ecfg.bn_stats_batch,
     )
     out = _conv(out, block_params["conv2"]["w"], stride=1, ecfg=ecfg)
     out, stats["bn2"] = _bn_apply(
         out, block_params["bn2"], eps=eps, layout=layout,
         state=None if state is None else state["bn2"], train=train,
-        engine=engine, interpret=interp, mode=ecfg.bn_mode, stats_batch=ecfg.bn_stats_batch,
+        mode=ecfg.bn_mode, stats_batch=ecfg.bn_stats_batch,
     )
 
     if "proj" in block_params:
@@ -244,12 +191,12 @@ def _basic_block(
         residual, stats["bn_proj"] = _bn_apply(
             residual, block_params["bn_proj"], eps=eps, layout=layout,
             state=None if state is None else state["bn_proj"], train=train,
-            engine=engine, interpret=interp, mode=ecfg.bn_mode, stats_batch=ecfg.bn_stats_batch,
+            mode=ecfg.bn_mode, stats_batch=ecfg.bn_stats_batch,
         )
     else:
         residual = x
 
-    out = residual_join(out, residual, engine=engine, relu_cap=ecfg.relu_cap, interpret=interp)
+    out = residual_join(out, residual, relu_cap=ecfg.relu_cap)
     return out, stats
 
 
@@ -265,27 +212,13 @@ def forward(
 ) -> Tuple[jax.Array, Dict[str, Any]]:
     """Run the network. Returns (fp32 logits, aux).
 
-    aux["bn_stats"]: pytree of per-layer batch (mean, var) — the TPU
-    equivalent of the reference's Cache_BatchNorm buffers (resnet.h:90-97).
+    aux["bn_stats"]: pytree of per-layer batch (mean, var) — the
+    counterpart of the reference's Cache_BatchNorm buffers (resnet.h:90-97).
     aux["activations"]: intermediate tensors when capture=True, keyed after
     the reference's Activations struct fields (resnet.h:99-152) for the
     dump/fidelity harness.
     """
     ecfg = ecfg or ExecutionConfig()
-    if (
-        ecfg.kernels in ("fused", "hybrid", "fusedxla")
-        and train
-        and not capture
-        and ecfg.layout == "NHWC"
-        and ecfg.bn_mode == "batch"
-        # ghost BN is a standard-path feature; the fused engines compute
-        # full-batch stats in the conv epilogue and must not silently
-        # drop the bn_stats_batch semantics
-        and not ecfg.bn_stats_batch
-    ):
-        from .fused_resnet import fused_forward
-
-        return fused_forward(params, x, mcfg, ecfg)
     layout = ecfg.layout
     eps = mcfg.bn_eps
     prec = ecfg.matmul_precision
@@ -295,8 +228,6 @@ def forward(
     tape: Optional[Dict[str, Any]] = {} if capture else None
     stats: Dict[str, Any] = {}
 
-    engine = ecfg.kernels
-    interp = ecfg.resolve_interpret() if engine == "pallas" else False
     use_s2d = (
         ecfg.space_to_depth
         and layout == "NHWC"
@@ -319,7 +250,8 @@ def forward(
     out, stats["init_bn"] = _bn_apply(
         out, params["init_bn"], eps=eps, layout=layout,
         state=None if bn_state is None else bn_state["init_bn"], train=train,
-        relu_fused=True, relu_cap=ecfg.relu_cap, engine=engine, interpret=interp, mode=ecfg.bn_mode, stats_batch=ecfg.bn_stats_batch,
+        relu_fused=True, relu_cap=ecfg.relu_cap, mode=ecfg.bn_mode,
+        stats_batch=ecfg.bn_stats_batch,
     )
     if tape is not None:
         tape["init_conv_activated"] = out
@@ -352,8 +284,8 @@ def forward(
                 run_block = jax.checkpoint(run_block)
             elif ecfg.remat == "elementwise" and remat_on:
                 # save conv outputs, recompute elementwise (BN apply, ReLU,
-                # joins) in backward — trades cheap VPU recompute for fewer
-                # residual reads (resnet_clean.cu's caching strategy)
+                # joins) in backward — trades cheap elementwise recompute
+                # for fewer saved activations (resnet_clean.cu's strategy)
                 run_block = jax.checkpoint(run_block, policy=_SAVE_CONVS)
             h, bstats = run_block(params["blocks"][i], h)
             stats_acc.append(bstats)
@@ -382,9 +314,8 @@ def forward(
     pooled = global_avg_pool(out, layout=layout)
     if tape is not None:
         tape["final_avg_pool"] = pooled
-    logits = fc(
-        pooled, params["fc"]["w"], params["fc"].get("b"),
-        engine=engine, precision=prec, interpret=interp,
+    logits = linear(
+        pooled, params["fc"]["w"], params["fc"].get("b"), precision=prec,
     ).astype(jnp.float32)
     if tape is not None:
         tape["linear_output"] = logits

@@ -1,8 +1,9 @@
-from .activation import relu, relu_cap
+from .activation import relu, relu_cap, residual_join
 from .batchnorm import (
     batch_moments,
     batch_norm,
     batch_norm_inference,
+    bn_act,
     update_running_stats,
 )
 from .conv import conv2d
@@ -15,9 +16,11 @@ from .softmax import log_softmax, softmax
 __all__ = [
     "relu",
     "relu_cap",
+    "residual_join",
     "batch_moments",
     "batch_norm",
     "batch_norm_inference",
+    "bn_act",
     "update_running_stats",
     "conv2d",
     "linear",

@@ -11,6 +11,8 @@ relu_cap matches the cuDNN-fast variant's clipped ReLU with ceiling 10
 
 from __future__ import annotations
 
+from typing import Optional
+
 import jax
 import jax.numpy as jnp
 
@@ -21,3 +23,13 @@ def relu(x: jax.Array) -> jax.Array:
 
 def relu_cap(x: jax.Array, cap: float = 10.0) -> jax.Array:
     return jnp.clip(x, 0.0, cap)
+
+
+def residual_join(a: jax.Array, b: jax.Array, *,
+                  relu_cap: Optional[float] = None) -> jax.Array:
+    """relu(a + b), optionally capped — the residual join
+    (resnet.cu:1717-1723)."""
+    y = relu(a + b)
+    if relu_cap is not None:
+        y = jnp.minimum(y, jnp.asarray(relu_cap, y.dtype))
+    return y

@@ -13,8 +13,7 @@ SPATIAL_PERSISTENT mode, resnet_cudnn.cu:1655-1695):
 
 Here forward/backward come from autodiff of the closed-form expression; the
 fused three-kernel backward pipeline of resnet_clean.cu:785-905 maps to XLA
-fusion (and a Pallas kernel in kernels/bn.py). Statistics are always computed
-in float32 even under bf16 compute.
+fusion. Statistics are always computed in float32 even under bf16 compute.
 """
 
 from __future__ import annotations
@@ -41,12 +40,9 @@ import functools as _functools
 
 def _moments_value(x, layout):
     """One-pass (mean, biased var): the two reductions (sum x, sum x^2) are
-    sibling jnp.sums — XLA's multi-output fusion merges them into one read
-    of the activation (two jnp.mean calls, by contrast, measured an extra
-    ~6ms/step at batch 256 on v5e). Written as two plain reduces, not one
-    variadic lax.reduce: variadic reduce misses XLA:TPU's fast
-    row-reduction emitter (swapping it for sibling sums in the BN backward
-    measured 1900->2026 img/s on the full step)."""
+    sibling jnp.sums, which XLA's multi-output fusion merges into one read
+    of the activation. Written as two plain reduces, not one variadic
+    lax.reduce, which XLA's reduction emitters handle less well."""
     axes = _reduce_axes(layout)
     acc = jnp.result_type(x.dtype, jnp.float32)
     xf = x.astype(acc)
@@ -67,10 +63,9 @@ def batch_moments(x: jax.Array, layout: str = "NHWC") -> Tuple[jax.Array, jax.Ar
     """Per-channel (mean, biased var) over batch+space, fp32 accumulation.
 
     Matches getMeansAndVars (resnet_clean.cu:620-654). Closed-form custom
-    VJP — XLA's transpose of a variadic lax.reduce lowers disastrously
-    (measured 6x step blowup), while the analytic gradient
-    d(mean)/dx = 1/n, d(var)/dx = 2(x - mean)/n is one fused elementwise
-    pass.
+    VJP: the analytic gradient d(mean)/dx = 1/n, d(var)/dx = 2(x - mean)/n
+    is one fused elementwise pass, where autodiff of the reductions would
+    leave XLA a transpose of a reduce to lower.
     """
     return _moments_value(x, layout)
 
@@ -105,8 +100,7 @@ def _bn_ghost(x, gamma, beta, eps: float, layout: str, k: int):
 
     Autodiff of the sliced-moments formulation makes XLA materialize a
     full-size zero-pad of every activation in backward (the slice's
-    transpose), measured 98.6ms -> 176ms/step at b256. The closed form
-    needs no pad: with full-batch sums dbeta = sum(dy), dgamma =
+    transpose). The closed form needs no pad: with full-batch sums dbeta = sum(dy), dgamma =
     sum(dy*x_hat) (required for the parameter grads anyway),
 
         dx_i = gamma/sigma * (dy_i - [i<k] * (dbeta + x_hat_i*dgamma)/m_k)
@@ -239,6 +233,32 @@ def batch_norm(
     ).reshape(shape)
     y = x.astype(stat_dtype) * scale + shift
     return y.astype(x.dtype), (mean, var)
+
+
+def bn_act(
+    x: jax.Array,
+    gamma: jax.Array,
+    beta: jax.Array,
+    *,
+    eps: float,
+    layout: str,
+    relu: bool,
+    relu_cap: Optional[float] = None,
+    mean: Optional[jax.Array] = None,
+    var: Optional[jax.Array] = None,
+) -> Tuple[jax.Array, Tuple[jax.Array, jax.Array]]:
+    """BN followed by the optional (capped) ReLU, doBatchNormAndActivate
+    (resnet.cu:289). Returns (y, (mean, var)); explicit mean/var select eval
+    mode. XLA fuses the normalisation, the ReLU and the cap into one pass."""
+    from .activation import relu as _relu
+
+    y, stats = batch_norm(x, gamma, beta, eps=eps, layout=layout, mean=mean,
+                          var=var)
+    if relu:
+        y = _relu(y)
+        if relu_cap is not None:
+            y = jnp.minimum(y, jnp.asarray(relu_cap, y.dtype))
+    return y, stats
 
 
 def batch_norm_inference(

@@ -1,10 +1,10 @@
-"""2-D convolution on the MXU via XLA.
+"""2-D convolution via XLA.
 
 Replaces the reference's direct conv kernels (doConvolution resnet.cu:109,
 convolutionDerivInput resnet.cu:166, convolutionDerivWeights resnet.cu:227)
-and its cuDNN wrappers (resnet_cudnn_fast.cu:1248-1521). On TPU the
-convolution lowers to implicit GEMM on the systolic array; XLA autotunes the
-algorithm, playing the role of the reference's cudnnFind* machinery
+and its cuDNN wrappers (resnet_cudnn_fast.cu:1248-1521). On the GPU, XLA
+hands the convolution to cuDNN and autotunes the algorithm, playing the
+role of the reference's cudnnFind* machinery
 (resnet_cudnn_fast.cu:1275-1303). Backward (data + filter) comes from
 autodiff of lax.conv_general_dilated, including the reference's 'toAdd'
 gradient accumulation at residual joins (resnet_cudnn.cu:1531-1536), which
@@ -37,11 +37,9 @@ _PRECISION = {
     "highest": lax.Precision.HIGHEST,
 }
 
-# Strided-1x1 subsample+dot route: measured SLOWER than XLA's strided
-# conv lowering in-step (2490 vs 2586 img/s at b256 bf16 on v5e — the
-# subsample slice plus its interior-pad transpose in backward cost more
-# than the conv path saves), so OFF by default; kept env-gated with a
-# parity test as a documented negative result.
+# Strided-1x1 subsample+dot route: OFF by default (XLA's strided conv is
+# the default path); kept env-gated with a parity test. Not measured on the
+# GPU.
 import os as _os
 
 _S2_DOT = _os.environ.get("RESNET_TPU_1X1S2_DOT", "0") == "1"
@@ -76,10 +74,8 @@ def conv2d(
         kh == 1 and kw == 1 and padding is None and groups == 1
         and (stride == 1 or _S2_DOT)
     ):
-        # 1x1 conv IS a matmul over (N*H*W, Cin) — route it straight to the
-        # MXU as dot. ResNet-50's FLOPs are dominated by 1x1 reduce/expand
-        # convs (32 of 53 per step); measured ~10x faster than this
-        # XLA stack's conv lowering for the same shape. Stride-2 (the
+        # 1x1 conv IS a matmul over (N*H*W, Cin) — route it straight to
+        # dot (a GEMM). 32 of ResNet-50's 53 convs are 1x1. Stride-2 (the
         # standard-topology projection shortcuts) subsamples first: a 1x1
         # window never overlaps, so conv(x, w, s) == dot(x[::s, ::s], w)
         # exactly (reference_padding is 0 for k=1), and the backward is a
@@ -128,13 +124,11 @@ def conv2d(
     )
 
 
-# Phase-plane stride-2 backward-data (round-4 verdict experiment #2b):
-# XLA expresses dgrad of a strided conv as an lhs_dilated (zero-stuffed)
-# convolution; this axis instead computes each of the 4 residue planes of
-# dx with a small dense stride-1 conv over dy (the forward phase trick of
-# kernels/fused_conv.py:248-288 applied to the backward) and interleaves
-# them with a reshape/transpose. Env-gated, parity-tested; measured
-# in-step on the chip (docs/backward_experiments_r4.json).
+# Phase-plane stride-2 backward-data: XLA expresses dgrad of a strided
+# conv as an lhs_dilated (zero-stuffed) convolution; this axis instead
+# computes each of the 4 residue planes of dx with a small dense stride-1
+# conv over dy and interleaves them with a reshape/transpose. Env-gated
+# (off by default), parity-tested; not measured on the GPU.
 _S2_PHASE_BWD = _os.environ.get("RESNET_TPU_S2_PHASE_BWD", "0") == "1"
 
 

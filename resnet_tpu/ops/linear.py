@@ -3,7 +3,7 @@
 The reference keeps a hand-rolled naive matMul for the FC layer in ALL
 variants, including the cuDNN ones (resnet.cu:70-88, used at resnet.cu:1759;
 resnet_cudnn_fast.cu:1612-1639). Backward is transpose+matmul pairs
-(resnet.cu:1823-1830). Here it is one jnp.dot on the MXU; backward from
+(resnet.cu:1823-1830). Here it is one jnp.dot (a cuBLAS GEMM on the GPU); backward from
 autodiff. No bias (the reference has none).
 """
 

@@ -15,14 +15,8 @@ realizations are provided (ExecutionConfig.maxpool_vjp):
   "equal AND not matched by an earlier offset" (the reference's first-win
   scan order), and accumulate on the input grid via an interior-dilated
   pad. Semantics are identical to the reference scatter including ties.
-
-  MEASURED (v5e, stem shape 256x112x112x64 bf16, tools/bench_maxpool_bwd):
-  select_scatter 1.62ms — essentially AT its 1.25ms DMA roofline — vs
-  25.7ms for 'mask': the nine stride-2 slices each pay a cross-tile
-  relayout on the (8,128)-tiled layout, the same pathology as Pallas
-  window reads (docs/granularity_r3.md). XLA's SelectAndScatter emitter
-  is already optimal here; 'mask' exists as the measured negative result
-  and a semantics cross-check, not a perf path.
+  'mask' is a semantics cross-check; 'select_scatter' is the default
+  (neither has been timed on the GPU).
 
 Global average pool replaces doFilterAvgPool/filterAvgPoolDeriv
 (resnet.cu:500-543): mean over 7x7, backward broadcasts grad/49.

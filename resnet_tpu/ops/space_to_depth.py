@@ -1,8 +1,8 @@
-"""Space-to-depth stem transform (the MLPerf ResNet-on-TPU trick).
+"""Space-to-depth stem transform (the MLPerf ResNet trick).
 
 The stem conv (7x7/s2 over 3 channels, resnet.cu:3246) is the worst-mapped
-op in the network for the MXU: contraction depth k*k*3 = 147 with only 3
-input channels on the 128-wide lane dimension. Folding 2x2 spatial blocks
+op in the network for a matrix unit: only 3 input channels feed each
+tap's contraction. Folding 2x2 spatial blocks
 into channels reshapes the input (B,224,224,3) -> (B,112,112,12) and turns
 the stem into a 4x4/s1 conv over 12 channels — same math, exactly (each
 original tap (di,dj) lands at s2d tap (q,p) = ((di+4)//2, (dj+4)//2) and

@@ -2,7 +2,6 @@ from .adam import (
     GuardedAdamState,
     adam_init,
     adam_update,
-    adam_update_fused,
     guarded_adam,
 )
 from .schedules import make_schedule
@@ -12,7 +11,6 @@ __all__ = [
     "GuardedAdamState",
     "adam_init",
     "adam_update",
-    "adam_update_fused",
     "guarded_adam",
     "make_schedule",
     "sgd_init",

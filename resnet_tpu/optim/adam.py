@@ -123,57 +123,6 @@ def adam_update(
     )
 
 
-def adam_update_fused(
-    grads,
-    state: GuardedAdamState,
-    params,
-    *,
-    learning_rate,
-    weight_decay: float = 0.0,
-    beta1: float = 0.9,
-    beta2: float = 0.999,
-    eps: float = 1e-7,
-    nonfinite_guard: bool = True,
-    interpret: bool = False,
-):
-    """Same semantics as adam_update, via the single fused Pallas kernel
-    (kernels/adam.py) over the raveled parameter vector — one pass over HBM
-    instead of per-tensor updates (~ collapsing the reference's 3x160
-    kernel launches, resnet.cu:2952-2966)."""
-    from jax.flatten_util import ravel_pytree
-
-    from ..kernels import fused_adam_flat
-
-    p_flat, unravel = ravel_pytree(
-        jax.tree.map(lambda p: p.astype(jnp.float32), params)
-    )
-    g_flat, _ = ravel_pytree(
-        jax.tree.map(lambda g, p: g.astype(jnp.float32), grads, params)
-    )
-    m_flat, _ = ravel_pytree(state.means)
-    v_flat, _ = ravel_pytree(state.vars)
-
-    cur_mean_decay = state.mean_decay_prod * jnp.float32(beta1)
-    cur_var_decay = state.var_decay_prod * jnp.float32(beta2)
-    new_p, new_m, new_v = fused_adam_flat(
-        p_flat, g_flat, m_flat, v_flat,
-        learning_rate=learning_rate, weight_decay=weight_decay,
-        beta1=beta1, beta2=beta2, eps=eps,
-        cur_mean_decay=cur_mean_decay, cur_var_decay=cur_var_decay,
-        nonfinite_guard=nonfinite_guard, interpret=interpret,
-    )
-    new_params = jax.tree.map(
-        lambda new, old: new.astype(old.dtype), unravel(new_p), params
-    )
-    return new_params, GuardedAdamState(
-        means=unravel(new_m),
-        vars=unravel(new_v),
-        mean_decay_prod=cur_mean_decay,
-        var_decay_prod=cur_var_decay,
-        step=state.step + 1,
-    )
-
-
 def guarded_adam(
     learning_rate,
     *,

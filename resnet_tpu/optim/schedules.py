@@ -1,8 +1,8 @@
 """Learning-rate schedules.
 
 The reference uses a constant LR per variant (1e-4 or 1e-3, resnet.cu:3286).
-Schedules are new capability required for the accuracy target (BASELINE.md:
-76% top-1 needs warmup + decay per Goyal et al. 2017, whose zero-gamma trick
+Schedules are new capability required for the accuracy target
+(docs/imagenet_76_recipe.md: 76% top-1 needs warmup + decay per Goyal et al. 2017, whose zero-gamma trick
 the reference's comments already cite at resnet.cu:695-698).
 
 All schedules are step -> lr functions built from jnp so they trace cleanly

@@ -4,8 +4,8 @@ The pjit-auto path (train/step.py make_train_step) lets the partitioner
 place the gradient all-reduce. This module is the manual-control variant:
 per-device shards run the local forward/backward, then gradients (and
 batch-summed metrics) are combined with an explicit jax.lax.psum over the
-ICI 'data' axis — the TPU-native expression of the gradient-sync layer the
-reference never had (SURVEY.md section 2.7).
+'data' axis — the gradient-sync layer the reference never had (SURVEY.md
+section 2.7).
 
 BN statistics remain per-device ("local BN", the standard DP choice —
 equivalent to the reference semantics when each device sees the full batch
@@ -35,7 +35,7 @@ def make_shard_map_train_step(cfg: TrainConfig, mesh: Mesh, donate: bool = True)
             _loss_fn, has_aux=True
         )(state.params, batch, state.bn_state, cfg)
 
-        # ICI all-reduce: sum-of-gradients across the global batch, exactly
+        # all-reduce: sum-of-gradients across the global batch, exactly
         # the semantics of the reference's summed (not averaged) CE grad
         # (resnet.cu:1806-1811) extended across devices.
         grads = jax.lax.psum(grads, axis)

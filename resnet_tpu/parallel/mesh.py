@@ -1,10 +1,11 @@
 """Device mesh construction and placement helpers.
 
 New capability: the reference is strictly single-GPU/single-process
-(SURVEY.md section 2.7 — no NCCL/MPI anywhere). On TPU the distributed layer
-is jax.sharding over an ICI mesh; these helpers build the 1-D data-parallel
-mesh used for the v5e-8 target and keep axis names open for wider meshes
-(tp/pp axes can be added without touching callers).
+(SURVEY.md section 2.7 — no NCCL/MPI anywhere). Here the distributed layer
+is jax.sharding over a device mesh, with XLA's collectives (NCCL between
+GPUs); these helpers build the 1-D data-parallel mesh used across the four
+GPUs of one host and keep axis names open for wider meshes (tp/pp axes can
+be added without touching callers).
 """
 
 from __future__ import annotations
@@ -38,10 +39,9 @@ def make_mesh_2d(
     devices: Optional[Sequence[jax.Device]] = None,
     axes: Sequence[str] = ("data", "model"),
 ) -> Mesh:
-    """(data x model) mesh for composite data+tensor parallelism. Lay the
-    model axis innermost so its collectives ride adjacent-chip ICI links
-    (the torus neighbors), with the data axis's gradient all-reduce on the
-    outer dimension."""
+    """(data x model) mesh for composite data+tensor parallelism. NVLink
+    joins the GPUs of a host all to all, so the order of devices in the
+    grid carries no meaning; the axes follow the algorithm alone."""
     if devices is None:
         devices = jax.devices()
     n = data * model

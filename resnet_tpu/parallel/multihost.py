@@ -44,7 +44,7 @@ def fetch_global(tree):
     """device_get that tolerates cross-process-sharded leaves.
 
     A leaf sharded across hosts is materialized via
-    multihost_utils.process_allgather (an ICI/DCN all-gather — every
+    multihost_utils.process_allgather (a cross-host all-gather — every
     process must call this in lockstep, as with any collective); fully
     addressable or already-host leaves fall through to device_get.
     The checkpoint writer uses this so ZeRO-sharded state dumps whole

@@ -2,11 +2,10 @@
 
 The reference has no inference path at all (its six binaries train only,
 resnet.cu:3222-3429; prediction exists solely as the train-step softmax
-copied to host, resnet.cu:1774), let alone a quantized one; this is the
-TPU-native serving accelerator: v5e's MXU runs int8 at 2x its bf16
-peak (measured 393.6 TOP/s vs 197.6 TFLOP/s on this chip for the same
-stage-1 conv shape), and int8 activations halve HBM traffic. The recipe is
-the standard production PTQ stack:
+copied to host, resnet.cu:1774), let alone a quantized one. int8 tensor
+cores run at twice the bf16 rate on Hopper (NVIDIA's data sheet), and int8
+activations halve the bytes moved. The recipe is the standard production
+PTQ stack:
 
 1. ``fold_bn_inference``: eval-mode BN is a per-channel affine with fixed
    running statistics, so it folds into the preceding conv exactly
@@ -16,9 +15,8 @@ the standard production PTQ stack:
    record per-site absolute maxima -> per-tensor symmetric activation
    scales.
 3. ``quantize_weights``: per-output-channel symmetric int8 weights.
-4. ``quantized_forward``: int8 conv/matmul (int32 accumulation on the MXU)
-   at every conv site, dequant+bias+ReLU epilogues in bf16, residual joins
-   in bf16.
+4. ``quantized_forward``: int8 conv/matmul (int32 accumulation) at every
+   conv site, dequant+bias+ReLU epilogues in bf16, residual joins in bf16.
 
 Geometry is identical to the training path: reference-centered windows
 (ops/padding.py), NHWC, grouped convs supported. Accuracy note: symmetric
@@ -216,8 +214,15 @@ def _quant_act(x, scale):
 
 
 def _qconv(xq, wq, stride, groups=1):
-    """int8 x int8 -> int32 conv on the MXU; 1x1 routed to dot (with the
-    exact stride-subsample identity for k=1, as in ops/conv.py)."""
+    """int8 x int8 conv with int32 accumulation. 1x1 is routed to an int8
+    dot with an int32 result (the exact stride-subsample identity for k=1,
+    as in ops/conv.py); k>1 comes back as float32.
+
+    The k>1 convs ask for float32 output: XLA hands integer convolutions
+    to cuDNN only in its s8-in / f32-out form (an int32 result does not
+    lower on the GPU), and cuDNN accumulates that form in int32 before the
+    conversion — the same numbers as an int32 conv converted to float32,
+    which is what ``_qsite`` does next anyway."""
     kh, kw = wq.shape[0], wq.shape[1]
     if kh == 1 and kw == 1 and groups == 1:
         if stride > 1:
@@ -236,7 +241,7 @@ def _qconv(xq, wq, stride, groups=1):
         xq, wq, (stride, stride), pad,
         dimension_numbers=lax.conv_dimension_numbers(xq.shape, wq.shape, _DN),
         feature_group_count=groups,
-        preferred_element_type=jnp.int32,
+        preferred_element_type=jnp.float32,
     )
 
 
@@ -249,7 +254,7 @@ def _qsite(x, q, scale, stride, groups=1, act_dtype=jnp.bfloat16):
 
 def quantized_forward(qparams, scales, x, mcfg: ModelConfig, *,
                       relu_cap=None, act_dtype=jnp.bfloat16):
-    """W8A8 inference: every conv and the FC run int8 on the MXU with int32
+    """W8A8 inference: every conv and the FC run int8 with int32
     accumulation; epilogues/joins in act_dtype."""
     h = _relu(_qsite(x, qparams["init"], scales["init"], mcfg.init_stride,
                      act_dtype=act_dtype), relu_cap)

@@ -1,6 +1,6 @@
 """Training state pytree.
 
-The TPU analogue of Train_ResNet (resnet.h:195-215): model params, optimizer
+The counterpart of Train_ResNet (resnet.h:195-215): model params, optimizer
 state (Adam m/v + decay products ~ Backprop_Buffer.prev_means/prev_vars +
 cur_mean_decay/cur_var_decay), BN running stats (new capability — the
 reference keeps none), and the global step (~ cur_dump_id). Being a pytree,

@@ -12,7 +12,7 @@ not averaged (resnet.cu:1806-1811). The *reported* loss is the batch mean of
 
 Data parallelism: with a mesh, the same step function is jitted with the
 batch sharded over the 'data' axis and state replicated; XLA inserts the
-gradient all-reduce over ICI (SURVEY.md section 2.7). An explicit shard_map
+gradient all-reduce (NCCL across GPUs, SURVEY.md section 2.7). An explicit shard_map
 variant lives in parallel/data_parallel.py.
 """
 
@@ -84,24 +84,7 @@ def _apply_optimizer(grads, state: TrainState, cfg: TrainConfig):
     ocfg = cfg.optimizer
     schedule = make_schedule(ocfg)
     lr = schedule(state.opt_state.step)
-    if ocfg.name == "adam" and ocfg.fused and ocfg.wd_mask == "all":
-        # the flat fused kernel has no per-leaf wd mask; masked configs
-        # fall through to the pytree path below
-        from ..optim.adam import adam_update_fused
-
-        new_params, new_opt = adam_update_fused(
-            grads,
-            state.opt_state,
-            state.params,
-            learning_rate=lr,
-            weight_decay=ocfg.weight_decay,
-            beta1=ocfg.beta1,
-            beta2=ocfg.beta2,
-            eps=ocfg.eps,
-            nonfinite_guard=ocfg.nonfinite_guard,
-            interpret=cfg.execution.resolve_interpret(),
-        )
-    elif ocfg.name == "adam":
+    if ocfg.name == "adam":
         new_params, new_opt = adam_update(
             grads,
             state.opt_state,
@@ -276,8 +259,8 @@ def make_train_step(
     """Jit the train step, optionally sharded over a device mesh.
 
     With a mesh, batch arrays are sharded along the 'data' axis and state is
-    replicated; jit's partitioner inserts the ICI gradient all-reduce
-    (the TPU-native replacement for the absent NCCL layer, SURVEY.md 2.7).
+    replicated; jit's partitioner inserts the gradient all-reduce (the
+    NCCL layer the reference lacks, SURVEY.md 2.7).
     state_shardings overrides the replicated state placement for composite
     meshes (e.g. parallel.composite_shardings: FC head tensor-parallel over
     a 'model' axis); batch_shardings overrides the batch placement (e.g.
@@ -287,9 +270,6 @@ def make_train_step(
     """
     fn = functools.partial(train_step, cfg=cfg)
     kwargs: Dict[str, Any] = {}
-    copts = cfg.execution.jit_compiler_options()
-    if copts:
-        kwargs["compiler_options"] = copts
     if donate:
         kwargs["donate_argnums"] = (0,)
     if mesh is not None:
@@ -353,9 +333,6 @@ def make_eval_step(cfg: TrainConfig, mesh=None, batch_shardings=None,
                    state_shardings=None):
     fn = functools.partial(eval_step, cfg=cfg)
     kwargs: Dict[str, Any] = {}
-    copts = cfg.execution.jit_compiler_options()
-    if copts:
-        kwargs["compiler_options"] = copts
     if mesh is not None:
         from jax.sharding import NamedSharding, PartitionSpec as P
 

@@ -1,4 +1,4 @@
-"""Training driver — the TPU analogue of main()'s epoch/iter loop
+"""Training loop — the counterpart of main()'s epoch/iter loop
 (resnet.cu:3222-3429).
 
 Per iteration the reference does: load_new_batch -> sync -> forward_pass ->
@@ -69,18 +69,6 @@ class Trainer:
                 "spatial_devices/zero_sharding need a device mesh, but "
                 "use_mesh is off (single device or --no-mesh)"
             )
-        if (
-            (pcfg.spatial_devices > 1 or pcfg.zero_sharding)
-            and cfg.execution.kernels == "blockfused"
-        ):
-            # a pallas_call under a spatially/state-sharded pjit has no
-            # SPMD partitioning rule — fail with the config knobs named
-            # instead of an opaque partitioner/Mosaic compile error
-            raise ValueError(
-                "spatial_devices/zero_sharding are incompatible with "
-                "kernels='blockfused' (Pallas calls carry no SPMD "
-                "partitioning rule); use kernels='xla'"
-            )
         if pcfg.spatial_devices > 1 and cfg.execution.grad_accum > 1:
             # jax 0.9.0's SPMD partitioner miscompiles the microbatched
             # gradient collectives for spatially-sharded inputs (loss
@@ -129,7 +117,7 @@ class Trainer:
                 # — that contract needs every (data-row x spatial) group to
                 # live on ONE host, i.e. the inner spatial axis must divide
                 # the per-host device count so H-shard halo exchanges ride
-                # intra-host ICI, never DCN
+                # intra-host links, never the network between hosts
                 if jax.local_device_count() % pcfg.spatial_devices:
                     raise ValueError(
                         f"spatial_devices={pcfg.spatial_devices} must divide "
@@ -303,8 +291,8 @@ class Trainer:
         dcfg = self.cfg.data
         if dcfg.synthetic and dcfg.device_batches > 0:
             # device-resident rotation: K distinct synthetic batches staged
-            # once, zero per-step H2D — full-cadence soak mode for hosts
-            # whose transfer path (e.g. a tunneled chip) can't keep up
+            # once, zero per-step H2D — the step runs at full device cadence
+            # with the input pipeline out of the loop
             import itertools
 
             sharding = self._batch_shardings
@@ -405,7 +393,7 @@ class Trainer:
                 self.cursor = batch_cursor
             if pending is not None and cfg.record_metrics:
                 # only fetch metrics when logging is on — each device_get is
-                # a host sync (expensive over remote/tunneled devices)
+                # a host sync
                 s, m = pending
                 self.logger.log_step(s, jax.device_get(m), epoch=self.cursor.epoch)
             pending = (step_before, metrics)

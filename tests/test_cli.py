@@ -19,14 +19,13 @@ def test_build_config_defaults():
 def test_build_config_fast_variant_axes():
     cfg, _ = build_config([
         "--dtype", "bfloat16", "--layout", "NCHW", "--remat", "block",
-        "--kernels", "pallas", "--optimizer", "sgd", "--schedule", "step",
+        "--optimizer", "sgd", "--schedule", "step",
         "--steps", "100",
     ])
     assert cfg.execution.compute_dtype == "bfloat16"
     assert cfg.execution.matmul_precision == "default"  # bf16 implies
     assert cfg.execution.layout == "NCHW"
     assert cfg.execution.remat == "block"
-    assert cfg.execution.kernels == "pallas"
     assert cfg.optimizer.name == "sgd"
     assert cfg.optimizer.total_steps == 100
 
@@ -93,12 +92,13 @@ def test_variant_presets():
     assert fast.optimizer.learning_rate == pytest.approx(1e-3)
 
     naive = variant_config("resnet")
-    assert naive.execution.kernels == "pallas"
+    assert naive.execution.remat == "none"  # cache everything
     assert naive.data.batch_size == 32  # resnet.cu:3279
     assert naive.optimizer.learning_rate == pytest.approx(1e-4)
 
     clean = variant_config("clean")
-    assert clean.execution.remat == "block"
+    # resnet_clean.cu caches conv outputs, recomputes activations
+    assert clean.execution.remat == "elementwise"
     assert clean.data.batch_size == 224  # resnet_clean.cu:3786
 
     nchw = variant_config("nchw")

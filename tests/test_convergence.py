@@ -1,6 +1,6 @@
 """End-to-end learning test: the full training loop (model + BN + Adam +
 running-stat EMA + eval path) must actually learn a separable problem —
-the CPU-scale stand-in for the 76% top-1 gate (BASELINE.md).
+the CPU-scale stand-in for the 76% top-1 recipe (docs/imagenet_76_recipe.md).
 
 Synthetic task: 6 classes of oriented gratings + class-specific color bias,
 distinguishable by a small convnet but not linearly trivial.

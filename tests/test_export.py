@@ -126,10 +126,12 @@ def test_bf16_weights_export_halves_artifact(tiny, rng):
     """weights_dtype='bfloat16' halves the baked-constant payload while the
     logits stay close to the fp32 artifact's."""
     mcfg, params, bn_state = tiny
-    fp = export_inference(params, mcfg, bn_state=bn_state).serialize()
-    bf = export_inference(
+    from resnet_tpu.export import serialize_inference
+
+    fp = serialize_inference(export_inference(params, mcfg, bn_state=bn_state))
+    bf = serialize_inference(export_inference(
         params, mcfg, bn_state=bn_state, weights_dtype="bfloat16"
-    ).serialize()
+    ))
     assert len(bf) < 0.65 * len(fp), (len(fp), len(bf))
     x = _images(rng, 2, mcfg.input_dim)
     a = np.asarray(load_inference(fp).call(x))

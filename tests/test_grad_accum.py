@@ -1,5 +1,5 @@
 """Gradient accumulation (ExecutionConfig.grad_accum): lax.scan over
-microbatches inside one jitted step — the TPU-native version of the
+microbatches inside one jitted step — the JAX version of the
 reference's lowmem memory strategy (rotating scratch buffers,
 resnet_cudnn_lowmem.cu; SURVEY.md appendix). The summed-CE convention
 (resnet.cu:1806-1811) makes the accumulated gradient exactly the

@@ -214,10 +214,10 @@ def test_cross_entropy_sum_grad_is_softmax_minus_onehot(rng):
 
 def test_relu_cap_dispatch():
     """Clipped ReLU (cuDNN-fast cap 10, resnet_cudnn_fast.cu:1143-1145)
-    through the dispatch layer."""
+    through the BN+act and residual-join ops."""
     import jax.numpy as jnp
 
-    from resnet_tpu.ops.dispatch import bn_act, residual_join
+    from resnet_tpu.ops import bn_act, residual_join
 
     x = jnp.asarray([[-5.0, 2.0, 50.0, 7.0]], jnp.float32).reshape(1, 1, 1, 4)
     gamma = jnp.ones((4,), jnp.float32)
@@ -323,9 +323,11 @@ def test_execution_config_validates_axes():
 
     from resnet_tpu.config import ExecutionConfig
 
-    ExecutionConfig(kernels="fusedxla")  # valid
-    with pytest.raises(ValueError, match="kernels"):
-        ExecutionConfig(kernels="palas")
+    ExecutionConfig(layout="NCHW", remat="elementwise")  # valid
+    with pytest.raises(ValueError, match="layout"):
+        ExecutionConfig(layout="NHCW")
+    with pytest.raises(TypeError):
+        ExecutionConfig(kernels="xla")  # no engine axis: one XLA path
     with pytest.raises(ValueError, match="bn_mode"):
         ExecutionConfig(bn_mode="running")
 

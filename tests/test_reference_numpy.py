@@ -6,8 +6,8 @@ Unlike test_golden.py (which freezes our own numerics and catches
 regressions), this suite catches *errors*: a silently wrong BN formula,
 conv/pool window geometry, or head numerics diverges from the oracle even
 if our golden files were regenerated around it. This is the executable
-form of BASELINE.md's "fp32 forward at batch 1 comparable to reference
-dumps" gate — real dumps can't be produced here (no CUDA), so the oracle
+form of the "fp32 forward at batch 1 comparable to reference dumps"
+gate — real dumps can't be produced here (no CUDA), so the oracle
 recomputes them the way analyze_trainer_dump.ipynb recomputes the head.
 """
 
@@ -104,7 +104,7 @@ def test_tiny_forward_matches_reference_oracle(rng):
 
 
 def test_resnet50_batch1_forward_matches_reference_oracle(rng):
-    """The BASELINE.md gate shape: full ResNet-50, fp32, batch 1, 224^2.
+    """The fidelity gate's shape: full ResNet-50, fp32, batch 1, 224^2.
     Tight-eps elementwise (fp32 reduction orders differ between XLA and
     numpy BLAS; 'bitwise-comparable' per SURVEY.md section 7)."""
     mcfg = model_config("resnet50")

@@ -1,6 +1,6 @@
 """Compare two activation/parameter dumps tensor-by-tensor.
 
-The fidelity gate (BASELINE.md): fp32 batch-1 forward activations compared
+The fidelity gate: fp32 batch-1 forward activations compared
 against reference dumps. This tool diffs either two of our manifest-style
 dumps (analysis/dump.py) or two reference-style buffer directories
 (numbered %03d.buffer files, the dump_trainer schema resnet.cu:2279-2317),

@@ -12,12 +12,12 @@ batches (not noise — round-3 verdict weak #5).
 
 Dataset: resnet_tpu/data/procedural.py — 100 parametric texture+shape
 classes at 64x64 with instance noise at signal scale; train and eval are
-disjoint deterministic instance streams. (ImageNet is not available on
-this box; SURVEY 7 gives the composition-to-ImageNet mapping.)
+disjoint deterministic instance streams. (SURVEY 7 gives the
+composition-to-ImageNet mapping.)
 
-Writes docs/convergence_r4.json with the loss/accuracy curves.
+Writes the loss/accuracy curves to --out.
 
-Usage (real chip, ~30-45 min):
+Usage (on the GPU):
   python tools/convergence_run.py --steps 12000
 CPU rehearsal:
   JAX_PLATFORMS=cpu python tools/convergence_run.py --steps 60 \
@@ -55,14 +55,10 @@ def main():
     ap.add_argument("--resume-at", type=int, default=0,
                     help="0 = halfway: stop, rebuild the Trainer from"
                          " --resume-from latest, continue")
-    ap.add_argument("--dir", default="/root/convergence_r4")
-    ap.add_argument("--out", default="docs/convergence_r4.json")
+    ap.add_argument("--dir", default="convergence_dumps")
+    ap.add_argument("--out", default="convergence.json")
     args = ap.parse_args()
 
-    if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
     import jax
 
     from resnet_tpu.config import (

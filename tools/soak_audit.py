@@ -13,7 +13,7 @@ in-anger resume evidence at /root/reference/resnet_cudnn.cu:3591 —
 what matters is the dump integrity and the exact continuation, both of
 which are on-disk facts).
 
-Usage: python tools/soak_audit.py --dir /root/soak_r5 --out docs/soak_r5.json
+Usage: python tools/soak_audit.py --dir soak_dir --out soak_audit.json
 """
 
 import argparse
